@@ -1,6 +1,6 @@
 """air3D: aircraft collision avoidance backward reachable tube.
 
-The TPU-native equivalent of the reference's working GPU demo
+The equivalent of the reference's working GPU demo
 (``Notes/rcbrt_cp.ipynb``): relative-coordinates Dubins pursuit-evasion on a
 3-D grid with periodic heading, WENO5 + TVD-RK2, live tube extraction via
 marching tetrahedra.

@@ -1,4 +1,4 @@
-"""Defining a CUSTOM dynamical system — and still getting the fused kernels.
+"""Defining a CUSTOM dynamical system with no analytic dissipation bound.
 
 Most users of the reference never write an analytic dissipation bound: they
 implement ``dynamics`` + ``get_opt_u``/``get_opt_v`` and let
@@ -11,17 +11,12 @@ box.  This example shows the same workflow here:
      generic optimal-control Hamiltonian and the 4-corner costate-box
      alpha come from the base class;
   2. pick a node-local dissipation (``dissipation="local"`` = LLF, the
-     reference's production default, or ``"locallocal"``) — on TPU the
-     whole thing then runs INSIDE the fused RK-substep kernel: the
-     4-corner alpha is evaluated per substep from the node-local
-     derivative boxes the kernel already holds in registers
-     (``kernels/hjstep.py``, VERDICT r4 #1).
+     reference's production default, or ``"locallocal"``): the 4-corner
+     alpha is then evaluated every RK substep from the node-local
+     derivative boxes.
 
-Kernel constraint worth knowing: the opt policies execute inside the
-Mosaic kernel, so use lowerable ops (sign/abs/min/max/sqrt/sin/cos and
-arithmetic).  ``atan2`` has no TPU lowering — for direction-valued
-controls return the unit vector ``(p_i/|p|, p_j/|p|)`` instead of an
-angle (it is faster anyway: no trig in the hot loop).
+For direction-valued controls, return the unit vector
+``(p_i/|p|, p_j/|p|)`` instead of an angle: no trig in the hot loop.
 
 Run:  python examples/custom_system.py [--n 41] [--t-end 0.4]
 """
@@ -88,8 +83,7 @@ def main():
 
     # LLF: node-local costate box for the active dim, grid-global box for
     # the others — the reference's production dissipation for generic
-    # systems.  On TPU this runs in the fused substep kernel; elsewhere
-    # the XLA path computes the same 4-corner bound per substep.
+    # systems; the 4-corner bound is recomputed every substep.
     cfg = SchemeConfig(accuracy="veryHigh", rk_order=2,
                        dissipation="local")
     t0 = time.time()

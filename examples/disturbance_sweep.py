@@ -30,7 +30,7 @@ def main():
     ap.add_argument("--layout", choices=["batchlast", "vmap"],
                     default="batchlast",
                     help="batchlast: solve_batch structure-of-arrays "
-                         "(scenarios in the lane axis, ~2x on TPU); "
+                         "(scenarios on the trailing axis); "
                          "vmap: jax.vmap(solve) batch-first")
     args = ap.parse_args()
 
@@ -44,8 +44,8 @@ def main():
     ws = jnp.linspace(0.5, 2.0, args.batch)
 
     if args.layout == "batchlast":
-        # structure-of-arrays: the scenario axis rides the TPU's 128-wide
-        # vector lanes, so small grids never pad vregs (~2x over vmap)
+        # structure-of-arrays: the scenario axis is the trailing,
+        # contiguous one, so every elementwise op runs across scenarios
         from levelsetpy_tpu import solve_batch
 
         def sweep():

@@ -1,6 +1,6 @@
 """Tutorial: backward reachable tube for the double integrator, end to end.
 
-The TPU-native equivalent of the reference's canonical driver
+The equivalent of the reference's canonical driver
 (``Backups/main.py`` — Sylvia Herbert's BRS/BRT tutorial, which no longer
 runs upstream): grid -> target -> system -> solve -> value query ->
 optimal trajectory -> plots.

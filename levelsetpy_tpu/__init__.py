@@ -1,10 +1,10 @@
-"""levelsetpy_tpu — a TPU-native Hamilton–Jacobi level-set / reachability
-framework (JAX + XLA + Pallas + pjit).
+"""levelsetpy_tpu — a Hamilton–Jacobi level-set / reachability framework in
+JAX (XLA + shard_map).
 
-Built from scratch with the capabilities of robotsorcerer/LevelSetPy
-(mounted read-only at /root/reference for behavioral parity), redesigned
-TPU-first: functional core, static-shape stencils, fully on-device time
-loops, shardable grids with ICI halo exchange, vmappable scenario sweeps.
+Built from scratch with the capabilities of robotsorcerer/LevelSetPy,
+redesigned for accelerators: functional core, static-shape stencils, fully
+on-device time loops, shardable grids with halo exchange, vmappable
+scenario sweeps.
 
 Quick start (air3D backward reachable tube)::
 

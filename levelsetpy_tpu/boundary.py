@@ -1,6 +1,6 @@
 """Ghost-cell boundary conditions as pure array → array functions.
 
-TPU-first redesign of the reference's ``BoundaryCondition/`` package
+Redesign of the reference's ``BoundaryCondition/`` package
 (``add_ghost_extrapolate.py``, ``add_ghost_periodic.py``, ``add_ghost_all.py``):
 the reference mutates a zero-initialised output with fancy ``cp.ix_`` indexing
 and ends with an explicit device sync in the hot path

@@ -1,8 +1,8 @@
 """Host-side grid decomposition utilities: splitting, cells, lattice
 alignment.
 
-TPU-first context: at runtime the framework shards grids over a device mesh
-with ICI halo exchange (``parallel/``), so these reference utilities —
+Context: at runtime the framework shards grids over a device mesh with
+halo exchange (``parallel/``), so these reference utilities —
 ``Grids/split_grid.py``, ``split_same_dim.py``, ``sep_grid.py``,
 ``cells_grid.py``, ``cell_neighs.py``, ``get_ogp_bounds.py``,
 ``flock_grid.py`` — survive as *host-side planning metadata*: building

@@ -1,19 +1,17 @@
 """Upwind spatial derivatives: first-order, ENO2, ENO3, WENO5 (+ centered ops).
 
-TPU-first redesign of the reference's ``SpatialDerivative/`` package
+Redesign of the reference's ``SpatialDerivative/`` package
 (``upwind_first_first.py``, ``upwind_first_eno2.py``, ``upwind_first_eno3a.py``,
 ``ENO3aHelper.py``, ``upwind_first_weno5a.py``, ``Other/*``).  The reference
 builds divided-difference (DD) tables with dynamic ``cp.ix_`` fancy indexing;
 here everything is static ``lax.slice_in_dim`` windows over a ghost-padded
-array, which XLA fuses into a single elementwise stencil pass per axis — the
-layout Pallas kernels later mirror block-wise.
+array, which XLA fuses into a single elementwise stencil pass per axis.
 
 Two-layer API:
   * ``*_from_padded(dx, gdata, axis, n, ...)`` — pure stencil math on an
     already ghost-filled array.  This is the seam shared by the single-device
-    path (ghosts from boundary conditions), the sharded path (ghosts from ICI
-    halo exchange, ``parallel/halo.py``) and the Pallas kernels (ghosts from
-    VMEM block overlap).
+    path (ghosts from boundary conditions) and the sharded path (ghosts from
+    halo exchange, ``parallel/halo.py``).
   * ``upwind_*(grid, data, axis)`` — public wrappers that ghost-fill per the
     grid's boundary conditions then call the padded kernel; signature matches
     the reference's ``upwindFirstX(grid, data, dim) -> (derivL, derivR)``.
@@ -306,7 +304,7 @@ def weno5z_from_padded(dx, gdata, axis: int, n: int):
 
     Uses the direct per-side dataflow (like :func:`weno5b_from_padded`) —
     the Z-weight ratio does not factor through the shared-table reversal
-    trick, and 2-D/3-D production solves should use the kernelised
+    trick, and 2-D/3-D production solves should use the shared-table
     ``weno5`` anyway."""
     eps = float(jnp.finfo(gdata.dtype).eps) ** 2
 

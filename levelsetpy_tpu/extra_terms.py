@@ -2,7 +2,7 @@
 curvature / in the normal direction, forcing, discounting, sums, stochastic
 trace-Hessian — plus a reinitialization driver.
 
-TPU-first redesign of the reference's ``ExplicitIntegration/Term/`` family
+Redesign of the reference's ``ExplicitIntegration/Term/`` family
 (``term_reinit.py``, ``term_convection.py``, ``term_curvature.py``,
 ``term_normal.py``, ``term_forcing.py``, ``term_disc.py``, ``term_sum.py``,
 ``term_trace_hess.py``).  Every factory returns an ``rhs(t, v) -> (v_dot,
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import jax
 import jax.numpy as jnp
 
 from .derivatives import (curvature as curvature_op, hessian, padded_fn)
@@ -309,7 +310,9 @@ def make_trace_hessian_term(
         # diffusion coefficient for process noise with stddev sigma, so for
         # the same sigma this term is half the reference's (flagged like
         # the other fixed reference bugs; see COVERAGE.md).
-        a = sg @ sg.T if sg.ndim == 2 else jnp.diag(sg * sg)
+        # HIGHEST: an f32 product may otherwise run in TF32 on a GPU
+        a = (jnp.matmul(sg, sg.T, precision=jax.lax.Precision.HIGHEST)
+             if sg.ndim == 2 else jnp.diag(sg * sg))
         delta = jnp.zeros_like(v)
         sb_inv = 0.0
         for i in range(nd):

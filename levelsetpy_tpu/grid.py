@@ -1,6 +1,6 @@
 """Static grid metadata for HJ level-set solves.
 
-TPU-first redesign of the reference's grid machinery
+Redesign of the reference's grid machinery
 (``Grids/process_grid.py``, ``Grids/create_grid.py`` in robotsorcerer/LevelSetPy):
 instead of a mutable ``Bundle`` carrying device arrays (``vs``/``xs``) plus
 boundary-condition *callbacks* threaded through every layer, the grid here is a

@@ -1,6 +1,6 @@
 """CFL-constrained TVD Runge-Kutta time integration, fully on-device.
 
-TPU-first redesign of ``ExplicitIntegration/Integration/ode_cfl_{1,2,3}.py``:
+Redesign of ``ExplicitIntegration/Integration/ode_cfl_{1,2,3}.py``:
 the reference runs a host-side Python ``while`` loop, pulling the CFL bound to
 host every substep and reallocating flattened copies of the state
 (``ode_cfl_3.py:125-241``).  Here one :func:`cfl_step` is pure traced math —

@@ -1,6 +1,6 @@
 """Proximal / primal-dual optimization: ADMM lasso and Chambolle-Pock TV.
 
-TPU-first replacement for the reference's ``Optimization/`` tower
+Replacement for the reference's ``Optimization/`` tower
 (``admm.py``: lasso ADMM with over-relaxation and soft-thresholding;
 ``champock.py``: Chambolle-Pock primal-dual total-variation solver).  The
 reference iterates host-side with numpy; here the iteration is a

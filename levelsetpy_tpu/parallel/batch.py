@@ -1,21 +1,18 @@
 """Sharded scenario sweeps: ``solve_batch`` over a device mesh.
 
 Scenarios in a batch-LAST sweep are INDEPENDENT — no stencil halos, and the
-per-element CFL/stop machinery is already local to each scenario lane
+per-element CFL/stop machinery is already local to each scenario
 (``solver._solve_core`` with ``n_batch``).  Sharding the trailing scenario
 axis over a mesh axis therefore needs ZERO per-substep collectives: each
-device runs its own fused batch kernel (or XLA batch path) over its own
-scenario slab, with its own independent while-loop trip count.  This is the
-multi-chip replacement for the reference's per-scenario rerun loop
-(``hji_solver.py:509`` — one full solve per parameter set, serial), at
-``n_devices ×`` the single-device sweep throughput.
+device runs its own batch solve over its own scenario slab, with its own
+independent while-loop trip count.  This is the multi-device replacement
+for the reference's per-scenario rerun loop (``hji_solver.py:509`` — one
+full solve per parameter set, serial).
 
 Layout: the global batch axis is padded (replicating the final scenario) to
-a multiple of the mesh axis size, each shard receives a contiguous
-``B/n_dev`` scenario slab, and the inner :func:`solver.solve_batch` then
-applies its own 128-lane padding per shard so the batch kernels never see a
-partial lane chunk.  Clone lanes integrate identically to their source and
-are sliced off every per-scenario output.
+a multiple of the mesh axis size and each shard receives a contiguous
+``B/n_dev`` scenario slab.  Clone scenarios integrate identically to their
+source and are sliced off every per-scenario output.
 """
 from __future__ import annotations
 
@@ -26,13 +23,25 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..grid import Grid
-from ..solver import (SolveResult, _replicate_last_leading as _pad_leading,
-                      _replicate_last_trailing as _pad_trailing,
-                      solve_batch)
+from ..solver import SolveResult, solve_batch
 from ..systems.base import System
 from ..terms import SchemeConfig
 
 __all__ = ["solve_batch_sharded"]
+
+
+def _pad_leading(arr, n_pad):
+    """Replicate the final leading-axis element ``n_pad`` times (scenario
+    clone padding)."""
+    return jnp.concatenate(
+        [arr, jnp.broadcast_to(arr[-1:], (n_pad, *arr.shape[1:]))])
+
+
+def _pad_trailing(arr, n_pad):
+    """Replicate the final trailing-axis element ``n_pad`` times."""
+    return jnp.concatenate(
+        [arr, jnp.broadcast_to(arr[..., -1:], (*arr.shape[:-1], n_pad))],
+        axis=-1)
 
 
 def solve_batch_sharded(

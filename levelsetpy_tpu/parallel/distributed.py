@@ -3,27 +3,26 @@
 The reference is strictly single-process (SURVEY §5.8: no NCCL/MPI/Gloo
 anywhere); the BASELINE north star (">=80% scaling efficiency to 2 hosts")
 needs a real multi-process story.  This module provides the three pieces a
-pod-slice run needs on top of :func:`~levelsetpy_tpu.parallel.solve_sharded`
+multi-host run needs on top of :func:`~levelsetpy_tpu.parallel.solve_sharded`
 (whose ``shard_map`` program is already SPMD and process-count agnostic):
 
-  1. :func:`init_distributed` — ``jax.distributed`` bring-up (TPU pods
-     auto-configure from the environment; CPU/GPU clusters pass coordinator
-     + process ids; CPU cross-process collectives ride Gloo).
+  1. :func:`init_distributed` — ``jax.distributed`` bring-up (pass the
+     coordinator + process ids; CPU cross-process collectives ride Gloo).
   2. :func:`make_global_mesh` — a named mesh over ALL processes' devices in
      host-contiguous order: the FIRST mesh axis varies slowest across
      hosts, so sharding the outermost grid axis over it puts every
-     nearest-neighbour halo hop except the host-boundary ones on intra-host
-     ICI, and only the two boundary halos per host cross DCN.
+     nearest-neighbour halo hop except the host-boundary ones inside a
+     host, and only the two boundary halos per host cross the network.
   3. :func:`make_process_local_array` / :func:`sharded_initial_condition` —
      build a global sharded array (initial condition, obstacle stacks)
      where each process materializes ONLY its own block
      (``jax.make_array_from_process_local_data``), so a 2048^3 grid never
      exists in any single host's memory.
 
-One-command pod entry point (same script on every host)::
+One-command multi-host entry point (same script on every host)::
 
-    # TPU pod slice: jax.distributed auto-configures per host
-    python scripts/multiprocess_harness.py --n 256
+    python scripts/multiprocess_harness.py --n 256 \
+        --coordinator HOST:PORT --num-processes N --process-id I
 
     # CPU rehearsal of the same code path (2 processes x 4 devices):
     python scripts/multiprocess_harness.py --spawn 2 --local-devices 4
@@ -55,9 +54,9 @@ def init_distributed(
 ) -> None:
     """Initialize the JAX distributed runtime (idempotent).
 
-    On TPU pods call with no arguments — every host auto-discovers the
-    coordinator from the TPU environment.  On CPU/GPU clusters pass the
-    coordinator ``host:port`` and this process's rank.  ``cpu_collectives``
+    Pass the coordinator ``host:port``, the process count and this
+    process's rank (a cluster manager that JAX recognises may supply them,
+    in which case they can be omitted).  ``cpu_collectives``
     selects the XLA CPU cross-process collective backend (gloo/mpi).
     """
     if cpu_collectives and "cpu" in os.environ.get(

@@ -1,13 +1,12 @@
-"""ICI halo exchange for sharded stencil grids.
+"""Halo exchange for sharded stencil grids.
 
 The reference has NO runtime distribution — its closest artifacts are
 host-side overlapping sub-grid decompositions (``Grids/split_grid.py:7,43``,
 ``Grids/cells_grid.py:12`` with ``padding`` = halo width) that are never
-executed in parallel.  This module is the real thing, TPU-native: a value
-function sharded over a ``jax.sharding.Mesh`` axis gets its ``width``-cell
-stencil halos from neighbouring shards via ``lax.ppermute`` (nearest-neighbour
-ICI hops — the optimal pattern for a 1-hop ring on a TPU torus), composed
-inside ``shard_map``.
+executed in parallel.  This module is the real thing: a value function
+sharded over a ``jax.sharding.Mesh`` axis gets its ``width``-cell stencil
+halos from neighbouring shards via ``lax.ppermute`` (one nearest-neighbour
+hop each way along the shard ring), composed inside ``shard_map``.
 
 Boundary semantics across the shard ring:
   * periodic axes: the ring IS the boundary condition — ppermute wraps.
@@ -30,7 +29,7 @@ def _shift(x: jnp.ndarray, mesh_axis: str, direction: int) -> jnp.ndarray:
     """Ring-shift a block to the neighbouring shard along ``mesh_axis``.
 
     ``direction=+1`` sends to the next shard (so each shard *receives* its
-    left neighbour's data); ``-1`` the reverse.  Single ICI hop per shard.
+    left neighbour's data); ``-1`` the reverse.  Single hop per shard.
     """
     n = lax.axis_size(mesh_axis)
     perm = [(i, (i + direction) % n) for i in range(n)]

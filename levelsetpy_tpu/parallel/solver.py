@@ -1,17 +1,17 @@
-"""Multi-chip sharded HJ solver: grid decomposition over a TPU device mesh.
+"""Multi-device sharded HJ solver: grid decomposition over a device mesh.
 
-The TPU-native answer to what the reference only sketches host-side
+The answer to what the reference only sketches host-side
 (``Grids/split_grid.py``'s overlapping sub-grids with ``padding`` halos, never
 run in parallel): the value function is sharded over a ``jax.sharding.Mesh``,
-each chip owns a contiguous block, WENO5's width-3 stencil halos travel over
-ICI via ``lax.ppermute`` (``parallel/halo.py``), and the three grid-global
+each device owns a contiguous block, WENO5's width-3 stencil halos travel
+via ``lax.ppermute`` (``parallel/halo.py``), and the three grid-global
 scalars in the step — the WENO epsilon, the Lax-Friedrichs alpha bound, and
 the CFL dt — are ``lax.pmax``-allreduced so every shard agrees on the
 timestep.  The entire time loop (scan over tau + while-loop of RK steps,
-``solver._solve_core`` — the SAME numerical core as the single-chip path)
+``solver._solve_core`` — the SAME numerical core as the single-device path)
 runs inside ONE ``shard_map``-ped jit program: per RK substep the only
 communication is ``2 * ndim_sharded`` nearest-neighbour halo hops plus the
-allreduces, all riding ICI.
+allreduces.
 
 For systems with time-invariant alpha (all shipped analytic systems) the
 allreduces for alpha/dt hoist out of the loop entirely — steady state is halo
@@ -78,7 +78,7 @@ def local_coords(grid: Grid, shard_axes: Mapping[int, str], dtype):
     """Broadcastable coordinate arrays for THIS shard's block (call inside
     shard_map).  Sharded axes offset their coordinates by
     ``axis_index * local_n`` — no gather, just index arithmetic, so the
-    coordinate 'arrays' still fold into the fused stencil kernels."""
+    coordinate 'arrays' still fuse into the stencil computations."""
     out = []
     for i in range(grid.ndim):
         shp = [1] * grid.ndim
@@ -101,8 +101,7 @@ def local_grid(grid: Grid, shard_axes: Mapping[int, str],
                mesh: Mesh) -> Grid:
     """The static grid of ONE shard's block: local shape, same ``lo``/``dx``
     as the global grid (coordinates are offset at runtime by the block's
-    global start index — see :func:`local_coords` and the ``origin``
-    argument of the fused Pallas kernel)."""
+    global start index — see :func:`local_coords`)."""
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     shape = tuple(
         grid.shape[i] // sizes[shard_axes[i]] if i in shard_axes
@@ -149,25 +148,13 @@ def solve_sharded(
     shard agrees):
       * ``stop_init`` evaluates V(state) on the all-gathered global array
         once per tau checkpoint (ref ``hji_solver.py:676-684``) — a few MB
-        over ICI at checkpoint frequency, not per RK step.
+        at checkpoint frequency, not per RK step.
       * ``ignore_boundary`` masks the convergence reduction by each node's
         GLOBAL index (the single-device path slices instead —
         ref ``hji_solver.py:663``); identical effective region.
-      * ``cfg.use_pallas`` + sharding over x and/or y runs the
-        persistent-layout fused RK-step kernel PER SHARD
-        (``kernels/hjstep.py`` / ``hjstep4d.py``): whole trailing/packed
-        axes fill their ghost layers in-kernel, each SHARDED axis's 6
-        ghost layers refresh via one ppermute hop each way (y before x
-        for corner coverage), and the lagged WENO epsilon pmax-reduces
-        per substep (zero per-substep collectives with
-        ``epsilon_method='maxOverNeighbors'``).  Shardings that touch the
-        trailing/lane axes run the fused Pallas RHS kernel per shard on
-        halo-exchanged local blocks instead (see ``terms.hj_rhs``).
     """
     from ..derivatives import GHOST_WIDTH
-    from ..terms import resolve_pallas
 
-    cfg = resolve_pallas(cfg)   # use_pallas=None -> auto (TPU backend on)
     shard_axes = {int(k): v for k, v in shard_axes.items()}
     width = GHOST_WIDTH[cfg.accuracy]
     mesh_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
@@ -220,17 +207,6 @@ def _sharded_run(grid, cfg, comp_method, shard_items, mesh, obstacles_tv,
     nd = grid.ndim
     mesh_axes = tuple(mesh.axis_names)
     lgrid = local_grid(grid, shard_axes, mesh)
-    # Grids sharded over x and/or y run the persistent-layout fused
-    # RK-step kernel PER SHARD (kernels/hjstep.py / hjstep4d.py): whole
-    # (trailing/packed) axes keep the in-kernel ghost fill, each SHARDED
-    # axis's 6 ghost layers refresh via ppermute halo hops
-    # (hjstep.refresh_ghosts_sharded; y runs before x for corner
-    # coverage), and the lagged epsilon pmax-reduces.  Shardings that
-    # touch the trailing/lane axes fall back to the per-RHS path.
-    fused_shard = ((dict(shard_axes), mesh_axes)
-                   if shard_axes and set(shard_axes) <= {0, 1}
-                   and nd in (3, 4) else None)
-
     grid_spec = P(*(shard_axes.get(i) for i in range(nd)))
     grid_spec_t = P(None, *(shard_axes.get(i) for i in range(nd)))
 
@@ -251,10 +227,6 @@ def _sharded_run(grid, cfg, comp_method, shard_items, mesh, obstacles_tv,
         tgt_local = rest.pop(0) if has_targets else None
         ops = shard_ops(grid, shard_axes, mesh_axes)
         xs = local_coords(grid, shard_axes, v0_local.dtype)
-        origin = tuple(
-            jax.lax.axis_index(shard_axes[i]) * lgrid.shape[i]
-            if i in shard_axes else jnp.zeros((), jnp.int32)
-            for i in range(nd))
 
         def trim(v):
             # Global-index mask instead of the single-device slice (ref
@@ -293,9 +265,7 @@ def _sharded_run(grid, cfg, comp_method, shard_items, mesh, obstacles_tv,
             converge_threshold=converge_threshold,
             trim=trim, save_all=save_all,
             use_precomputed=use_precomputed,
-            record_ttr=record_ttr, nan_guard=nan_guard,
-            allow_fused=fused_shard is not None, fused_shard=fused_shard,
-            pallas_grid=lgrid, pallas_origin=origin, eval_fn=eval_fn,
+            record_ttr=record_ttr, nan_guard=nan_guard, eval_fn=eval_fn,
         )
         values, changes, stop_index, steps, ttr, nan_index = out
         if record_ttr:

@@ -7,7 +7,7 @@ sharded with the same grid partition; the shared CFL bound and the
 convergence/NaN reductions ride the ``shard_ops`` pmax/pmin seam so all
 shards agree; the coupling hook runs on local blocks (elementwise coupling
 like reach-avoid masking needs no communication).  Full front-door parity
-with ``solve_vector`` (VERDICT r4 #5): per-field discounting, per-tau
+with ``solve_vector``: per-field discounting, per-tau
 operand stacks, TTR, stopInit/stopSet (the stopInit point query gathers
 the ``stop_field`` array once per tau checkpoint, as ``solve_sharded``
 does).
@@ -26,7 +26,7 @@ from ..terms import SchemeConfig
 from ..values import eval_u
 from ..vector import (VectorSolveResult, _norm_discount, _norm_fields,
                       _norm_stop, _solve_vector_core)
-from .solver import local_coords, local_grid, shard_ops
+from .solver import local_coords, shard_ops
 
 __all__ = ["solve_vector_sharded"]
 
@@ -60,9 +60,7 @@ def solve_vector_sharded(
     ``parallel.solve_sharded`` for the sharding rules (axis divisibility,
     halo width)."""
     from ..derivatives import GHOST_WIDTH
-    from ..terms import resolve_pallas
 
-    cfg = resolve_pallas(cfg)   # use_pallas=None -> auto (TPU backend on)
     shard_axes = {int(k): v for k, v in shard_axes.items()}
     width = GHOST_WIDTH[cfg.accuracy]
     mesh_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
@@ -118,12 +116,6 @@ def _sharded_vector_run(grid, cfg, comp_methods, n_f, shard_items, mesh,
     shard_axes = dict(shard_items)
     nd = grid.ndim
     mesh_axes = tuple(mesh.axis_names)
-    lgrid = local_grid(grid, shard_axes, mesh)
-    # x/y shardings run the fused substep kernel PER SHARD (same gate as
-    # parallel.solver._sharded_run); other shardings use the per-RHS path
-    fused_shard = ((dict(shard_axes), mesh_axes)
-                   if shard_axes and set(shard_axes) <= {0, 1}
-                   and nd == 3 else None)
     grid_spec = P(*(shard_axes.get(i) for i in range(nd)))
     grid_spec_t = P(None, *(shard_axes.get(i) for i in range(nd)))
 
@@ -136,10 +128,6 @@ def _sharded_vector_run(grid, cfg, comp_methods, n_f, shard_items, mesh,
              stop_state, stop_set_local, stop_level):
         ops = shard_ops(grid, shard_axes, mesh_axes)
         xs = local_coords(grid, shard_axes, v0s_local[0].dtype)
-        origin = tuple(
-            jax.lax.axis_index(shard_axes[i]) * lgrid.shape[i]
-            if i in shard_axes else jnp.zeros((), jnp.int32)
-            for i in range(nd))
 
         def eval_fn(v_local, state):
             # stopInit point query on the gathered stop_field array, once
@@ -163,9 +151,7 @@ def _sharded_vector_run(grid, cfg, comp_methods, n_f, shard_items, mesh,
             stop_state=stop_state if has_stop_state else None,
             stop_field=stop_field, stop_set=stop_set_local,
             stop_set_mode=stop_set_mode, stop_level=stop_level,
-            eval_fn=eval_fn,
-            pallas_grid=lgrid, pallas_origin=origin,
-            fused_shard=fused_shard)
+            eval_fn=eval_fn)
 
     ttr_spec = ((grid_spec,) * n_f if record_ttr else (P(),) * n_f)
     mapped = jax.shard_map(

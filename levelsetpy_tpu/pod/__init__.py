@@ -1,6 +1,6 @@
 """Proper Orthogonal Decomposition / operator-inference utilities.
 
-TPU-first replacement for the reference's ``POD/`` tower (adapted there from
+Replacement for the reference's ``POD/`` tower (adapted there from
 rom-operator-inference; ``_basis.py``, ``_tikhonov.py``,
 ``_finite_difference.py``, ``_reprojection.py``, ``multi_svd.py``).  The
 reference's ``multi_svd.py`` imports nonexistent modules (``..conf`` etc. —
@@ -56,8 +56,8 @@ def randomized_svd(x: jnp.ndarray, rank: int, n_oversamples: int = 10,
     ``randpytorch`` — sklearn/cupy/torch there; pure jnp here).  The
     algorithm is three matmul-shaped stages — range sketch ``Y = X Ω``,
     ``n_iter`` QR-stabilised power iterations, small-core SVD of
-    ``Q^T X`` — so the heavy work rides the MXU and a tall snapshot matrix
-    (e.g. 101³ × 585 floats from a full solve, where dense SVD is
+    ``Q^T X`` — so the heavy work is matrix products and a tall snapshot
+    matrix (e.g. 101³ × 585 floats from a full solve, where dense SVD is
     infeasible) decomposes in a few passes over HBM.
 
     ``n_oversamples`` extra sketch columns tighten the tail-energy bound

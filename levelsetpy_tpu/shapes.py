@@ -1,6 +1,6 @@
 """Implicit-surface / signed-distance initial conditions, and CSG ops.
 
-TPU-first equivalent of the reference's ``InitialConditions/`` package
+Equivalent of the reference's ``InitialConditions/`` package
 (``cylinder.py``, ``sphere.py``, ``rect_center.py``, ``rect_corners.py``,
 ``hyperplane.py``, ``hyper_pts.py``, ``shape_ops.py``).  All functions return a
 full-grid array ``phi`` with ``phi < 0`` inside the shape; they consume the

@@ -13,7 +13,7 @@ corner-max dissipation bound (``genericPartial`` semantics,
 ``hamiltonian``/``alpha`` with analytic forms (the notebook pattern — faster
 and exactly what the production demos use).
 
-TPU-first details:
+Design details:
   * Systems are pytree dataclasses (``jax.tree_util.register_dataclass``):
     numeric parameters are leaves, so ``vmap(solve)(batched_systems)`` sweeps
     thousands of scenarios; modes are static metadata, so changing them
@@ -81,14 +81,9 @@ class System:
     #: True when ``alpha`` ignores the costate box (``p_min``/``p_max``)
     #: but MAY depend on time — enables the solver's per-tau-interval
     #: LAGGED alpha refresh (bounds + CFL dt frozen at each interval's
-    #: start time), which routes time-varying systems through the fused
-    #: kernels.  Implied by ``alpha_time_invariant``.
+    #: start time), which hoists the alpha work out of the RK substeps.
+    #: Implied by ``alpha_time_invariant``.
     alpha_costate_free: bool = False
-    #: True when in-kernel alpha evaluation is EXPENSIVE (e.g. per-member
-    #: maxima over a flock): the fused 3-D substep kernel then DMAs the
-    #: precomputed per-axis bounds as operands instead of re-evaluating
-    #: them every substep (3 extra HBM block reads vs the VPU cost).
-    alpha_via_operands: bool = False
     #: MIE (mixed implicit-explicit) formulation (ref ``generic_ham.py:
     #: 23-43,57-59``): 'lower'/'upper' adds the time-invariant dimension's
     #: dynamics (:meth:`ti_dynamics`) with sign -1/+1 and negates the upper

@@ -1,6 +1,6 @@
 """Double integrator: the analytic-ground-truth system.
 
-TPU-native rewrite of ``DynamicalSystems/double_integrator.py`` in the
+Rewrite of ``DynamicalSystems/double_integrator.py`` in the
 reference: dynamics ``x1' = x2, x2' = u`` with ``|u| <= u_max`` — minimum time
 to reach the origin.  Ships the analytic minimum-time-to-reach solution
 (``mttr``, ref ``double_integrator.py:91-119``) and switching curve, which the

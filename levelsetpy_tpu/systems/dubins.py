@@ -1,6 +1,6 @@
 """Dubins vehicles: relative-coordinate pursuit-evasion (air3D) and absolute.
 
-TPU-native rewrite of ``DynamicalSystems/dubins_relative.py`` and
+Rewrite of ``DynamicalSystems/dubins_relative.py`` and
 ``dubins_absolute.py``.  ``DubinsRel`` is the air3D workhorse (Mitchell's
 aircraft-collision-avoidance benchmark, Merz 1972 form): relative dynamics
 

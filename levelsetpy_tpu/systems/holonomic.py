@@ -8,7 +8,7 @@ vehicle whose BRT has an exact closed form — a target implicit surface
 Purpose: the ANY-dimension exercise of the solver stack.  The reference's
 grid layer supports 1-5 dims (``Grids/process_grid.py:131``) but ships no
 working ≥5-D dynamics; this system closes that gap and backs the ndim=5
-solver tests/example (VERDICT r3 missing #4).  No reference counterpart —
+solver tests/example.  No reference counterpart —
 API follows the analytic-Hamiltonian pattern of ``DoubleIntegrator``.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Rocket pursuit-evasion game (Dreyfus/Mitter/Jacobson-Mayne lineage).
 
-TPU-native realization of the reference's ``DDPReach/`` research spur
+Realization of the reference's ``DDPReach/`` research spur
 (``rocket_system.py``, ``var_hji_approx.py``, ``ddp_reach.py`` — broken
 upstream: ``ddp_reach.py:10`` imports a nonexistent module, survey §2.8).
 The physical setup: two thrust-vectoring rockets over a shared plane,

@@ -1,7 +1,7 @@
 """Tensor algebra: n-mode products, matricization, Kruskal/Tucker formats,
 HOSVD and Tucker-ALS (HOOI) decompositions.
 
-TPU-first replacement for the reference's ``Tensors/`` tower
+Replacement for the reference's ``Tensors/`` tower
 (``class_tensor.py``, ``tensor_mat_mult.py``, ``matricize.py``,
 ``leading_vecs.py``, ``tucker_decomp.py``, ``class_tucker_als.py``,
 ``kronecker.py``).  The reference wraps arrays in a ``Tensor`` class and
@@ -9,9 +9,9 @@ hand-rolls unfoldings with permute/reshape loops (its ``tucker_decomp.py``
 doesn't parse — ``np..rand`` syntax error — and ``kruskal_tensor_mat_mul.py``
 is an empty ``__all__`` stub; survey §2.8).  Here everything is a pure
 function on ``jnp`` arrays: n-mode products lower to ``jnp.einsum`` /
-``dot_general`` — large batched matmuls that map straight onto the MXU — and
-decompositions run as fixed-iteration ``lax``-friendly loops, jittable and
-differentiable.
+``dot_general`` — large batched matmuls that map straight onto the
+matrix units — and decompositions run as fixed-iteration ``lax``-friendly
+loops, jittable and differentiable.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def mode_n_product(x: jnp.ndarray, m: jnp.ndarray, mode: int,
     (ref ``tensor_mat_mult.py:16``): contracts tensor dim ``mode`` with the
     second (or first, if ``transpose``) axis of ``M``.
 
-    Lowering: a single ``einsum`` → one MXU matmul with the remaining axes
+    Lowering: a single ``einsum`` → one matmul with the remaining axes
     batched; no explicit unfolding copies.
     """
     nd = x.ndim

@@ -1,6 +1,6 @@
 """HJ PDE term assembly: upwind derivatives + Hamiltonian + LF dissipation.
 
-TPU-first redesign of the reference's ``ExplicitIntegration/Term/
+Redesign of the reference's ``ExplicitIntegration/Term/
 term_lax_friedrich.py`` + ``Dissipation/{artificial_diss_glf,
 diss_local_laxfried, diss_localsq_laxfried}.py``.  Differences by design:
 
@@ -25,10 +25,8 @@ central average → analytic/generic Hamiltonian → LF dissipation, and returns
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Literal, Sequence
 
-import jax
 import jax.numpy as jnp
 
 from .boundary import pad_axis
@@ -37,7 +35,7 @@ from .grid import Grid
 from .systems.base import System
 
 __all__ = ["SchemeConfig", "hj_rhs", "precompute_alpha", "AlphaBounds",
-           "GridOps", "local_ops", "batched_ops", "resolve_pallas"]
+           "GridOps", "local_ops", "batched_ops"]
 
 Dissipation = Literal["global", "local", "locallocal"]
 
@@ -53,7 +51,7 @@ class GridOps:
         (plain ``jnp.max``; composed with ``lax.pmax`` across mesh axes).
 
     Keeping this seam tiny means the entire numerical core is written once
-    and runs identically on one chip or a pod slice.
+    and runs identically on one device or a device mesh.
     """
 
     pad: Callable
@@ -74,12 +72,11 @@ def batched_ops(grid: Grid) -> GridOps:
     """Batch-LAST execution ops: value arrays carry one trailing batch axis
     behind the grid axes — ``(*grid.shape, B)``.
 
-    On TPU the trailing axis is the 128-lane vector axis, so a sweep of
-    small grids (e.g. 1024 x 31^3, BASELINE config #3) runs at full lane
-    utilization: every elementwise op vectorizes across scenarios and the
-    stencil slices move along sublane/major axes only.  ``vmap``'s
-    batch-FIRST layout instead leaves the 31-point z-axis in the lanes —
-    ~4x padding waste per vreg.
+    The trailing axis is the contiguous one, so every elementwise op of a
+    sweep of small grids (e.g. 1024 x 31^3, BASELINE config #3) vectorizes
+    across scenarios and the stencil slices move along the outer axes only;
+    ``vmap``'s batch-FIRST layout keeps the short 31-point z-axis innermost
+    instead.
 
     Reductions collapse the grid axes only, yielding per-scenario ``(B,)``
     scalars (CFL bounds, convergence metrics, stop predicates); unbatched
@@ -120,21 +117,8 @@ class SchemeConfig:
     restrict_update: str | None = None
     #: re-arm the reference's per-substep CFL-violation warning
     #: (``ode_cfl_3.py:159-175``; see ``integration.cfl_step``).  Diagnostic
-    #: only, XLA solve path only (the fused-kernel path's dt comes from the
-    #: precomputed time-invariant bound, which cannot violate); each
-    #: violating substep costs a host callback round trip.
+    #: only; each violating substep costs a host callback round trip.
     check_cfl: bool = False
-    #: route the solve through the fused Pallas kernels when eligible
-    #: (see kernels/).  ``None`` (default) AUTO-DETECTS: resolves to the
-    #: truthy ``"auto"`` on a TPU backend (False elsewhere) — a plain
-    #: ``solve`` on TPU gets the fused substep kernels without any flag,
-    #: EXCEPT where a kernel is a measured loser (2-D, BENCH_ALL
-    #: ``weno2d_kernel`` 0.92x: auto stays XLA).  Set True to force every
-    #: eligible kernel, False to force the XLA path.
-    #: (A packed-lane layout variant was A/B-tested 2026-08-19 and removed:
-    #: its strided lane rotations cost more than the ~14% junk lanes they
-    #: eliminated — 0.433 vs 0.302 ms/step on v5e at 101^3.)
-    use_pallas: bool | str | None = None
 
     def deriv(self):
         return upwind_fn(self.accuracy)[0]
@@ -142,165 +126,10 @@ class SchemeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AlphaBounds:
-    """Precomputed per-axis dissipation bounds + global CFL step bound.
-
-    ``widened`` optionally carries the bounds in the fused Pallas kernel's
-    aligned layout (``kernels.weno3d.widen_alphas``) so the widening pads
-    run once per solve instead of once per RK substep."""
+    """Precomputed per-axis dissipation bounds + global CFL step bound."""
 
     alphas: tuple
     step_bound: jnp.ndarray
-    widened: tuple | None = None
-
-
-@functools.lru_cache(maxsize=1)
-def _tpu_backend() -> bool:
-    """True when the default JAX backend is a TPU (incl. remote-attached
-    TPU platforms whose ``platform`` string differs — match device_kind
-    too)."""
-    try:
-        d = jax.devices()[0]
-    except Exception:  # pragma: no cover - uninitialized backends
-        return False
-    return ("tpu" in (getattr(d, "platform", "") or "").lower()
-            or "tpu" in (getattr(d, "device_kind", "") or "").lower())
-
-
-def resolve_pallas(cfg: "SchemeConfig") -> "SchemeConfig":
-    """Resolve ``use_pallas=None`` (auto): ``"auto"`` on TPU backends,
-    ``False`` elsewhere.  Every solve entry point calls this once, before
-    the config enters any jit cache key.
-
-    ``"auto"`` is truthy (eligible paths route through the kernels) but
-    lets per-grid gates pick the measured winner — the 2-D RHS kernel
-    LOSES to XLA (BENCH_ALL ``weno2d_kernel_101sq`` 0.92x), so auto keeps
-    2-D solves on the XLA path; pass ``use_pallas=True`` to force it."""
-    if cfg.use_pallas is None:
-        return dataclasses.replace(
-            cfg, use_pallas="auto" if _tpu_backend() else False)
-    return cfg
-
-
-def pallas_epsilon(grid: Grid, cfg, v_pad, ops) -> jnp.ndarray:
-    """Per-axis WENO epsilon for the fused kernels, shape ``(ndim,)``.
-
-    maxOverGrid reproduces the reference semantics
-    (``upwind_first_weno5a.py:153-155``): 1e-6 * max(D1^2) over the
-    one-ghost-layer D1 table per axis.  Padding is per-axis independent, so
-    slicing the existing width-3 padded array down to one ghost layer along
-    ``axis`` (and none elsewhere) reproduces ``pad(v, axis, 1)`` exactly —
-    no extra pad kernels.  Works on both the tight width-3-padded layout
-    and the lane-aligned layout (trailing junk is never sliced).
-    """
-    nd = grid.ndim
-    dtype = v_pad.dtype
-    if cfg.epsilon_method in ("constant", "maxOverNeighbors"):
-        # maxOverNeighbors is node-local and built INSIDE the kernels
-        # (weno3d._resolve_epsq); the returned vector is an unused dummy
-        # carry so the fused while_loop keeps one signature
-        return jnp.full((nd,), 1e-6, dtype)
-    import math as _math
-
-    floor = _math.sqrt(float(jnp.finfo(dtype).tiny))
-    parts = []
-    for axis in range(nd):
-        starts = [3] * nd
-        limits = [3 + s for s in grid.shape]
-        starts[axis] -= 1
-        limits[axis] += 1
-        if v_pad.ndim == nd + 1:       # batch-LAST trailing scenario axis
-            starts.append(0)
-            limits.append(v_pad.shape[-1])
-        g1 = jax.lax.slice(v_pad, starts, limits)
-        m = g1.shape[axis]
-        d1 = (jax.lax.slice_in_dim(g1, 1, m, axis=axis)
-              - jax.lax.slice_in_dim(g1, 0, m - 1, axis=axis)) \
-            / grid.dx[axis]
-        parts.append(1e-6 * ops.reduce_max(d1 * d1) + floor)
-    return jnp.stack(parts)
-
-
-def _batched(*trees) -> bool:
-    """True when any leaf is a vmap batch tracer.  Mosaic rejects the
-    batched small SMEM operands a vmapped pallas_call produces (the
-    auto-added block specs violate lane/sublane tiling), so batched solves
-    fall back to the XLA path — which vmaps natively.
-
-    Detection goes through the public ``jax.interpreters.batching`` module
-    (no ``jax._src`` imports), with a name-based fallback should the
-    re-export ever move."""
-    try:
-        from jax.interpreters.batching import BatchTracer
-
-        def is_batch(leaf):
-            return isinstance(leaf, BatchTracer)
-    except ImportError:  # pragma: no cover - future-jax fallback
-        def is_batch(leaf):
-            return (isinstance(leaf, jax.core.Tracer)
-                    and type(leaf).__name__ == "BatchTracer")
-
-    return any(is_batch(l) for t in trees for l in jax.tree.leaves(t))
-
-
-def pallas_eligible(grid: Grid, cfg: "SchemeConfig", *trees) -> bool:
-    """True when ``hj_rhs`` will route through a fused Pallas kernel
-    (3-D slab kernel or 2-D plane kernel).  Pass the traced operands
-    (state, system) as ``trees`` so vmapped calls are detected and routed
-    to the XLA path."""
-    # dissipation: the kernels require PRECOMPUTED alphas
-    # (alpha_time_invariant — alpha ignores t and the costate box), and
-    # for such systems global/local/locallocal produce IDENTICAL
-    # dissipation (the box never enters), so all three route through.
-    # maxOverNeighbors epsilon is node-local, built in-kernel from the D1
-    # tables (weno3d._resolve_epsq) — with it, sharded solves run ZERO
-    # per-substep collectives (VERDICT r3 #3).
-    if not (cfg.use_pallas and grid.ndim in (2, 3)
-            and cfg.accuracy in ("veryHigh", "weno5")
-            and cfg.epsilon_method in ("constant", "maxOverGrid",
-                                       "maxOverNeighbors")):
-        return False
-    if grid.ndim == 2 and cfg.use_pallas == "auto":
-        # the 2-D plane kernel measures SLOWER than the XLA path
-        # (BENCH_ALL weno2d_kernel row, 0.92x) — auto picks the winner;
-        # an explicit use_pallas=True still forces the kernel
-        return False
-    if _batched(*trees):
-        return False
-    if grid.ndim == 2:
-        from .kernels.weno2d import fits_vmem_2d
-        return fits_vmem_2d(grid)
-    from .kernels.weno3d import fits_vmem
-    return fits_vmem(grid)
-
-
-def batch_pallas_eligible(grid: Grid, cfg: "SchemeConfig", n_batch: int,
-                          system, *trees, n_extras: int = 0) -> bool:
-    """True when the batch-LAST ``hj_rhs`` routes through the fused batched
-    kernel (``kernels/wenobatch.py``): 3-D WENO5 + global dissipation, the
-    batch a multiple of the 128-lane chunk, every system leaf scalar or
-    ``(B,)``, and the block working set within VMEM (``n_extras`` counts
-    the fused-epilogue operand streams the solve will DMA)."""
-    if not (cfg.use_pallas and grid.ndim == 3
-            and cfg.accuracy in ("veryHigh", "weno5")
-            and cfg.epsilon_method in ("constant", "maxOverGrid",
-                                       "maxOverNeighbors")):
-        return False
-    if _batched(system, *trees):
-        return False
-    from .kernels.wenobatch import batch_leaves_ok, pick_blocks
-    return (batch_leaves_ok(system, n_batch)
-            and pick_blocks(grid, n_batch, n_extras) is not None)
-
-
-def widen_alphas_any(grid: Grid, alphas: tuple, dtype) -> tuple:
-    """Pre-widen dissipation bounds to the fused kernel's aligned layout
-    for this grid's dimensionality (see ``weno3d.widen_alphas`` /
-    ``weno2d.widen_alphas_2d``)."""
-    if grid.ndim == 2:
-        from .kernels.weno2d import widen_alphas_2d
-        return widen_alphas_2d(grid, alphas, dtype)
-    from .kernels.weno3d import widen_alphas
-    return widen_alphas(grid, alphas, dtype)
 
 
 def precompute_alpha(
@@ -318,70 +147,6 @@ def precompute_alpha(
     alphas = tuple(system.alpha(t, xs, None, None, i) for i in range(nd))
     sb_inv = sum(reduce_max(a) / grid.dx[i] for i, a in enumerate(alphas))
     return AlphaBounds(alphas=alphas, step_bound=1.0 / sb_inv)
-
-
-def costate_alpha_bounds(grid: Grid, cfg: "SchemeConfig", system: System,
-                         t, v: jnp.ndarray, xs: Sequence,
-                         ops: GridOps | None = None):
-    """Costate-box dissipation bounds of a GENERIC system at one instant.
-
-    For systems without an analytic alpha (the reference's production
-    default: ``generic_partial.py:42-51`` evaluated over
-    ``diss_local_laxfried.py:106-121`` boxes), the fused substep kernels
-    evaluate the node-local part of the box IN-KERNEL per substep; what
-    they cannot cheaply produce per substep are the two grid-global
-    reductions — the CFL step bound and (for ``dissipation='local'``) the
-    off-axis global costate extremes.  This helper computes both with ONE
-    XLA derivative pass at a tau-interval start (the ``lagged_alpha``
-    refresh pattern, VERDICT r4 #1): returns ``(AlphaBounds, gbox)`` where
-    ``alphas`` are the node-wise bounds per ``cfg.dissipation`` (feeding
-    the step bound and any XLA-path consumer) and ``gbox = (gmin, gmax)``
-    are the per-dim global costate extremes (scalars).
-
-    Lag semantics: within the interval the kernel's alphas track the
-    CURRENT substep's node-local derivatives exactly; only the step bound
-    and the off-axis global box are frozen at the interval start.  Keep
-    tau intervals short relative to the solution's evolution (the same
-    caveat as the ``alpha_costate_free`` lagged refresh; the reference
-    recomputes every substep, ``diss_local_laxfried.py:106-121``).
-    """
-    nd = grid.ndim
-    if ops is None:
-        ops = local_ops(grid)
-    kernel, width = padded_fn(cfg.accuracy)
-    kwargs = (
-        {"epsilon_method": cfg.epsilon_method, "global_max": ops.reduce_max}
-        if cfg.accuracy in ("veryHigh", "weno5") else {})
-    deriv_l, deriv_r = [], []
-    for axis in range(nd):
-        g = ops.pad(v, axis, width)
-        dl, dr = kernel(grid.dx[axis], g, axis, v.shape[axis], **kwargs)
-        deriv_l.append(dl)
-        deriv_r.append(dr)
-    if cfg.dissipation == "locallocal":
-        # every axis shares ONE node-local box: a single 4-corner
-        # evaluation serves all bounds (System.alpha_all, same fast path
-        # as hj_rhs's locallocal branch)
-        p_min = tuple(jnp.minimum(l, r) for l, r in zip(deriv_l, deriv_r))
-        p_max = tuple(jnp.maximum(l, r) for l, r in zip(deriv_l, deriv_r))
-        alphas = list(system.alpha_all(t, xs, p_min, p_max))
-        sb_inv = sum(ops.reduce_max(a) / grid.dx[i]
-                     for i, a in enumerate(alphas))
-    else:
-        alphas, sb_inv = [], 0.0
-        for axis in range(nd):
-            p_min, p_max = _deriv_bounds(deriv_l, deriv_r,
-                                         cfg.dissipation, axis,
-                                         ops.reduce_max, ops.reduce_min)
-            a = system.alpha(t, xs, p_min, p_max, axis)
-            alphas.append(a)
-            sb_inv = sb_inv + ops.reduce_max(a) / grid.dx[axis]
-    gmin = tuple(ops.reduce_min(jnp.minimum(l, r))
-                 for l, r in zip(deriv_l, deriv_r))
-    gmax = tuple(ops.reduce_max(jnp.maximum(l, r))
-                 for l, r in zip(deriv_l, deriv_r))
-    return (AlphaBounds(alphas=tuple(alphas), step_bound=1.0 / sb_inv),
-            (gmin, gmax))
 
 
 def _deriv_bounds(deriv_l, deriv_r, kind: Dissipation, axis: int,
@@ -417,9 +182,6 @@ def hj_rhs(
     xs: Sequence,
     alpha_bounds: AlphaBounds | None = None,
     ops: GridOps | None = None,
-    pallas_grid: Grid | None = None,
-    pallas_origin=None,
-    n_batch: int | None = None,
 ):
     """Spatial RHS of ``V_t = -(H - diss)`` plus the CFL step bound.
 
@@ -430,81 +192,10 @@ def hj_rhs(
     switches between local and sharded padding/reductions (see
     :class:`GridOps`); ``v`` may be a local shard — only ``v.shape`` is used
     for stencil extents.
-
-    Sharded execution (inside ``shard_map``): pass ``pallas_grid`` = the
-    LOCAL block grid (same lo/dx, local shape) and ``pallas_origin`` = the
-    shard's global start index per axis (traced) so the fused Pallas kernel
-    runs on the local block with correct global coordinates.  The XLA path
-    never needs either — its shapes come from ``v`` and its coordinates
-    from ``xs``.
     """
     nd = grid.ndim
     if ops is None:
         ops = local_ops(grid)
-    pgrid = pallas_grid if pallas_grid is not None else grid
-
-    if (alpha_bounds is not None and n_batch is not None
-            and batch_pallas_eligible(grid, cfg, n_batch, system, v)):
-        from .kernels.wenobatch import (batch_system_closures,
-                                        fused_hj_rhs_batch, pick_blocks)
-
-        v_pad = v
-        for axis in range(nd):
-            v_pad = ops.pad(v_pad, axis, 3)
-        eps = pallas_epsilon(grid, cfg, v_pad, ops)
-        param_rows, ham_fn, alpha_fn = batch_system_closures(
-            grid, system, v.dtype, n_batch)
-        inv_eps = (1.0 / eps if cfg.epsilon_method == "maxOverGrid"
-                   else None)
-        bx, by, lc = pick_blocks(grid, n_batch)
-        v_dot = fused_hj_rhs_batch(
-            grid, ham_fn, alpha_fn, v_pad, eps, t, param_rows,
-            inv_eps=inv_eps, block_x=bx, block_y=by, lane_chunk=lc,
-            eps_neighbors=cfg.epsilon_method == "maxOverNeighbors")
-        if cfg.restrict_update == "min":
-            v_dot = jnp.minimum(v_dot, 0.0)
-        elif cfg.restrict_update == "max":
-            v_dot = jnp.maximum(v_dot, 0.0)
-        return v_dot, alpha_bounds.step_bound
-
-    if (alpha_bounds is not None and v.ndim == nd
-            and pallas_eligible(pgrid, cfg, v, system)):
-        from .kernels.weno3d import system_closures
-
-        v_pad = v
-        for axis in range(nd):
-            v_pad = ops.pad(v_pad, axis, 3)
-        eps = pallas_epsilon(pgrid, cfg, v_pad, ops)
-
-        # System parameters may be tracers (vmapped sweeps, jit args);
-        # pallas kernels cannot capture traced closures, so the system
-        # travels as a flattened SMEM vector and is rebuilt in-kernel.
-        flat_params, ham_fn, _ = system_closures(pgrid, system, v.dtype)
-
-        alphas_w = (alpha_bounds.widened
-                    if alpha_bounds.widened is not None
-                    else widen_alphas_any(pgrid, alpha_bounds.alphas,
-                                          v.dtype))
-        inv_eps = (1.0 / eps if cfg.epsilon_method == "maxOverGrid"
-                   else None)
-        nb = cfg.epsilon_method == "maxOverNeighbors"
-        if nd == 2:
-            from .kernels.weno2d import fused_hj_rhs_2d
-
-            v_dot = fused_hj_rhs_2d(pgrid, ham_fn, v_pad, alphas_w, eps, t,
-                                    params=flat_params, inv_eps=inv_eps,
-                                    eps_neighbors=nb, origin=pallas_origin)
-        else:
-            from .kernels.weno3d import fused_hj_rhs_3d
-
-            v_dot = fused_hj_rhs_3d(pgrid, ham_fn, v_pad, alphas_w, eps, t,
-                                    params=flat_params, inv_eps=inv_eps,
-                                    eps_neighbors=nb, origin=pallas_origin)
-        if cfg.restrict_update == "min":
-            v_dot = jnp.minimum(v_dot, 0.0)
-        elif cfg.restrict_update == "max":
-            v_dot = jnp.maximum(v_dot, 0.0)
-        return v_dot, alpha_bounds.step_bound
 
     kernel, width = padded_fn(cfg.accuracy)
     kwargs = (

@@ -1,12 +1,12 @@
 """Value-function post-processing: interpolation, projection, gradients,
 optimal trajectories — all on-device and batchable.
 
-TPU-first redesign of the reference's ``ValueFuncs/`` side tower:
+Redesign of the reference's ``ValueFuncs/`` side tower:
 
   * ``eval_u`` (``ValueFuncs/evaluate_u.py``) used host scipy
     ``RegularGridInterpolator`` — a full device->host round trip per query.
     Here :func:`eval_u` is a pure-JAX multilinear gather: jit/vmap-compatible,
-    so a million simultaneous queries run as one fused kernel on TPU.
+    so a million simultaneous queries run as one fused device program.
   * periodic dims wrap indices modulo the cell count — the intent of
     ``augmentPeriodicData`` (``ValueFuncs/augment_periodic.py``, whose axis
     slicing is buggy — survey Q6) without materialising an augmented copy.

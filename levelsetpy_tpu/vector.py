@@ -21,32 +21,18 @@ fields through the tau-checkpoint scan + CFL while-loop with
 Where fields do not interact (no coupling) and share a system, results are
 EXACTLY the per-field ``solve`` outputs (the shared dt is the same bound);
 tests assert this and exercise a coupled reach-avoid case on the sharded
-path.  Full front-door parity with the single-field ``solve`` (VERDICT r4
-#5): per-field Jaime/Kene discounting, per-field time-varying
+path.  Full front-door parity with the single-field ``solve``:
+per-field Jaime/Kene discounting, per-field time-varying
 obstacle/target stacks, per-field TTR recording, and stopInit/stopSet —
 the stop predicates evaluate on ONE designated field (``stop_field``,
 default 0: the reach field in a reach-avoid pair), since the reference's
 stop criteria are defined on a single value function
 (``hji_solver.py:250-266,676-703``) while its ``odeCFL3`` vector state
 machinery carries no stop semantics of its own (``ode_cfl_3.py:104-136``).
-Convergence/NaN guards reduce over all fields.  Kernel note: with
-``use_pallas``, 3-D fields with precomputed alphas run each RK step
-through the persistent-layout fused SUBSTEP kernel
-(``kernels/hjstep.py``) with a per-step lift/lower relayout around the
-coupling hook (which consumes grid-shaped fields).  Measured A/B
-(2026-08-21, TPU v5e, 101^3 WENO5+RK2, marginal per-step): persistent
-substep 0.261 ms, substep + per-step lift/lower 0.293 ms, fused-RHS path
-0.368 ms, XLA 0.328 ms — the r4 scope note's claim that the relayouts
-"cost about what the substep fusion saves" was measured FALSE: the
-relayout tax is 0.033 ms/step while the substep fusion saves ~0.075
-ms/step over the per-RHS kernel, so the substep-with-relayout path wins
-by ~20% and is now the vector default on TPU.  Comp/discount/obstacle/
-coupling/TTR stay XLA per step (the coupling hook forces the lower
-anyway).
+Convergence/NaN guards reduce over all fields.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Callable, NamedTuple, Sequence
 
@@ -56,8 +42,7 @@ import jax.numpy as jnp
 from .grid import Grid
 from .solver import _COMP_METHODS
 from .systems.base import System
-from .terms import (GridOps, SchemeConfig, hj_rhs, local_ops,
-                    precompute_alpha, pallas_eligible, widen_alphas_any)
+from .terms import GridOps, SchemeConfig, hj_rhs, local_ops, precompute_alpha
 
 __all__ = ["solve_vector", "VectorSolveResult"]
 
@@ -101,11 +86,6 @@ def _solve_vector_core(
     stop_set_mode=None,          # "include" | "intersect"
     stop_level=0.0,
     eval_fn: Callable | None = None,
-    pallas_grid: Grid | None = None,
-    pallas_origin=None,
-    fused_shard=None,            # ({grid axis: mesh name}, mesh names) —
-                                 # run the fused substep kernel PER SHARD
-                                 # (see solver._solve_core / hjstep)
 ):
     """The joint integration loop, written once for every execution mode
     (single device / shard_map — the ``ops`` seam, see ``solver._solve_core``
@@ -114,7 +94,6 @@ def _solve_vector_core(
     n_tau = tau.shape[0]
     dtype = v0s[0].dtype
     small_scale = 100.0 * jnp.finfo(dtype).eps
-    pgrid = pallas_grid if pallas_grid is not None else grid
     if obstacles_tv is None:
         obstacles_tv = (False,) * n_f
     if targets_tv is None:
@@ -131,39 +110,11 @@ def _solve_vector_core(
         def eval_fn(v, state):
             return eval_u(grid, v, state)
 
-    # Fused SUBSTEP-kernel vector path (measured A/B in the module
-    # docstring): every field 3-D + kernel-eligible + precomputed alphas.
-    # The RK substeps run in the aligned persistent layout per field; the
-    # per-step comp/discount/obstacle/coupling/TTR epilogue stays XLA on
-    # grid-shaped fields (one lift/lower relayout per field per step —
-    # 0.033 ms/step at 101^3, less than the 0.075 ms/step the substep
-    # fusion saves over the per-RHS kernel).
-    fused_vec = (
-        cfg.use_pallas and grid.ndim == 3 and all(use_precomputed)
-        # inside shard_map the substep kernel needs the halo machinery
-        # (fused_shard); shardings it doesn't cover use the per-RHS path
-        and (pallas_grid is None or fused_shard is not None)
-        and all(pallas_eligible(pgrid, cfg, v0s[k], systems[k])
-                for k in range(n_f)))
-
-    alpha_bounds = []
-    for k in range(n_f):
-        ab = (precompute_alpha(grid, systems[k], xs, tau[0],
-                               reduce_max=ops.reduce_max)
-              if use_precomputed[k] else None)
-        if (ab is not None and not fused_vec
-                and pallas_eligible(pgrid, cfg, v0s[k], systems[k])):
-            ab = dataclasses.replace(
-                ab, widened=widen_alphas_any(pgrid, ab.alphas, dtype))
-        alpha_bounds.append(ab)
-    if fused_vec:
-        # ONE shared CFL dt (min over fields, ref ode_cfl_3.py:120-136):
-        # give every field's fused_rk_step the same joint step bound
-        sb_shared = alpha_bounds[0].step_bound
-        for ab in alpha_bounds[1:]:
-            sb_shared = jnp.minimum(sb_shared, ab.step_bound)
-        alpha_bounds = [dataclasses.replace(ab, step_bound=sb_shared)
-                        for ab in alpha_bounds]
+    alpha_bounds = [
+        precompute_alpha(grid, systems[k], xs, tau[0],
+                         reduce_max=ops.reduce_max)
+        if use_precomputed[k] else None
+        for k in range(n_f)]
 
     def rhs(t, vs):
         """Joint RHS: per-field spatial operator, ONE shared step bound
@@ -171,8 +122,7 @@ def _solve_vector_core(
         dots, bound = [], None
         for k in range(n_f):
             dk, bk = hj_rhs(grid, cfg, systems[k], t, vs[k], xs,
-                            alpha_bounds[k], ops, pallas_grid=pallas_grid,
-                            pallas_origin=pallas_origin)
+                            alpha_bounds[k], ops)
             dots.append(dk)
             bound = bk if bound is None else jnp.minimum(bound, bk)
         return tuple(dots), bound
@@ -251,45 +201,6 @@ def _solve_vector_core(
                          for k in range(n_f))
 
         def do(vs, ttr):
-            if fused_vec:
-                # substep-kernel path: RK substeps in the aligned layout
-                # per field, lift/lower around the XLA per-step epilogue
-                # (module-docstring A/B)
-                from .kernels import hjstep
-
-                smap = hjstep.shard_spec(fused_shard)[0]
-
-                def liftk(v):
-                    vq = hjstep.lift(pgrid, v)
-                    if fused_shard is not None:
-                        vq = hjstep.refresh_sharded_axes(pgrid, vq, smap)
-                    return vq
-
-                def body(c):
-                    t, vs, n, ttr, epss = c
-                    outs, new_eps = [], []
-                    t_new = t
-                    for k in range(n_f):
-                        t_new, vqn, ek = hjstep.fused_rk_step(
-                            pgrid, cfg, systems[k], t, liftk(vs[k]), t1,
-                            alpha_bounds[k], None, epss[k],
-                            origin=pallas_origin, shard=fused_shard)
-                        outs.append(hjstep.lower(pgrid, vqn))
-                        new_eps.append(ek)
-                    vs_new = post_step(t_new, tuple(outs), vs, obs_i,
-                                       tgt_i)
-                    if record_ttr:
-                        ttr = update_ttr(t, t_new, vs, vs_new, ttr)
-                    return t_new, vs_new, n + 1, ttr, tuple(new_eps)
-
-                epss0 = tuple(
-                    hjstep.initial_epsilon(pgrid, cfg, liftk(v), ops=ops)
-                    for v in vs)
-                _, vs, n, ttr, _ = jax.lax.while_loop(
-                    lambda c: c[0] < t1 - small, body,
-                    (t0, vs, jnp.zeros((), jnp.int32), ttr, epss0))
-                return vs, n, ttr
-
             def cond(c):
                 t, _, _, _ = c
                 return t < t1 - small
@@ -582,12 +493,6 @@ def solve_vector(
     stop_state, stop_set, stop_set_mode = _norm_stop(
         grid, len(v0s), dtype, stop_init, stop_field,
         stop_set_include, stop_set_intersect)
-
-    from .terms import _batched, resolve_pallas
-
-    cfg = resolve_pallas(cfg)   # use_pallas=None -> auto (TPU backend on)
-    if cfg.use_pallas and _batched(systems, v0s, tau):
-        cfg = dataclasses.replace(cfg, use_pallas=False)
 
     run = _cached_vector_run(
         grid, cfg, comp_methods, len(v0s),

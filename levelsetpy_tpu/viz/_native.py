@@ -4,20 +4,37 @@ The C++ core (``native/marching_tet.cpp``) implements the identical
 decomposition/case logic as the vectorized numpy path in ``marching.py`` —
 the numpy path is the correctness oracle, the native path the fast default
 for large grids (single pass, deduplicated vertices, no big intermediate
-index tensors).  Built by ``scripts/build_native.sh``; silently absent if
-never built (callers fall back to numpy).
+index tensors).  Built from source by ``scripts/build_native.sh`` into the
+git-ignored ``levelsetpy_tpu/_native/``, on first use or by running that
+script; absent when the build cannot run (no compiler), and callers then
+fall back to numpy.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
+import shutil
+import subprocess
 
 import numpy as np
 
-__all__ = ["native_available", "marching_tetrahedra_native"]
+__all__ = ["native_available", "marching_tetrahedra_native", "build"]
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_SO = _PKG / "_native" / "libmarching.so"
+_SCRIPT = _PKG.parent / "scripts" / "build_native.sh"
 
 _LIB = None
 _TRIED = False
+
+
+def build() -> bool:
+    """Compile the extractor from ``native/marching_tet.cpp``; True when
+    the library exists afterwards."""
+    if not _SO.exists() and _SCRIPT.exists() and shutil.which("g++"):
+        subprocess.run(["bash", str(_SCRIPT)], check=True,
+                       capture_output=True, timeout=300)
+    return _SO.exists()
 
 
 def _load():
@@ -25,10 +42,12 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = pathlib.Path(__file__).resolve().parents[1] / "_native" / \
-        "libmarching.so"
-    if not so.exists():
+    try:
+        if not build():
+            return None
+    except subprocess.SubprocessError:
         return None
+    so = _SO
     lib = ctypes.CDLL(str(so))
     lib.marching_tet.restype = ctypes.c_int
     lib.marching_tet.argtypes = [

@@ -3,7 +3,7 @@
 The reference redraws matplotlib INSIDE the solver loop
 (``hji_solver.py:731-836``; live marching cubes per step in
 ``Notes/rcbrt_cp.ipynb`` cell 6 via ``Visualization/interactive_plotter.py:
-27`` and ``visualizer.py:71,177``) — a host sync per step.  The TPU-native
+27`` and ``visualizer.py:71,177``) — a host sync per step.  The
 replacement keeps the solve one XLA program and exports the SAME per-
 checkpoint views afterwards from the ``SolveResult`` stack: one frame per
 tau checkpoint, as reusable geometry (``.npz`` contour segments / triangle

@@ -52,43 +52,3 @@ class TestPlanar4D:
                            shard_axes={0: "px", 1: "py"}, mesh=mesh,
                            cfg=cfg)
         np.testing.assert_allclose(r1.values, r2.values, atol=1e-10)
-
-
-def test_sharded_4d_fused_xy_mesh(monkeypatch):
-    """4-D xy-sharded solve routes through the fused packed-lane kernel
-    per shard (in-kernel z/w fill, ppermute x/y ghosts) and matches the
-    single-device fused solve."""
-    from jax.experimental import pallas as pl
-
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pl, "pallas_call", interp)
-
-    from levelsetpy_tpu.kernels import hjstep4d
-
-    calls = []
-    orig_step = hjstep4d.fused_rk_step_4d
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig_step(*a, **k)
-
-    monkeypatch.setattr(hjstep4d, "fused_rk_step_4d", spy)
-
-    g, sys_, phi0 = setup_4d(16)
-    tau = jnp.linspace(0.0, 0.15, 2)
-    cfg = SchemeConfig(accuracy="veryHigh", rk_order=2, use_pallas=True,
-                       epsilon_method="constant", factor_cfl=0.7907)
-    r1 = solve(g, sys_, phi0, tau, cfg=cfg)
-    mesh = make_mesh({"px": 2, "py": 2})
-    r2 = solve_sharded(g, sys_, phi0, tau,
-                       shard_axes={0: "px", 1: "py"}, mesh=mesh, cfg=cfg)
-    assert calls, "4-D xy-sharded solve did not route through the kernel"
-    scale = float(jnp.max(jnp.abs(r1.values)))
-    np.testing.assert_allclose(np.asarray(r2.values), np.asarray(r1.values),
-                               atol=2e-5 * scale)
-    assert int(r1.steps) == int(r2.steps)

@@ -226,62 +226,6 @@ class TestShardedFeatureParity:
         np.testing.assert_allclose(r1.values, r2.values, atol=1e-10)
 
 
-class TestShardedPallas:
-    """The fused Pallas RHS kernel under shard_map (interpret mode):
-    per-shard kernels on halo-exchanged blocks with origin-offset
-    coordinates must match both the XLA sharded path and the single-device
-    solve."""
-
-    @pytest.fixture()
-    def interpret_pallas(self, monkeypatch):
-        from jax.experimental import pallas as pl
-
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k["interpret"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(pl, "pallas_call", interp)
-
-    def setup_f32(self, shape=(16, 16, 16)):
-        grid = create_grid([-6, -10, 0], [20, 10, 2 * np.pi], shape,
-                           periodic_dims=[2])
-        xs = grid.mesh_broadcastable(jnp.float32)
-        v = cylinder(grid, ignore_axes=[2], radius=5.0) \
-            + 0.5 * jnp.sin(xs[2]) * jnp.cos(0.3 * xs[0]) \
-            * jnp.cos(0.2 * xs[1])
-        system = DubinsRel(v_e=5.0, v_p=5.0, w_bound=1.0)
-        return grid, system, v
-
-    @pytest.mark.parametrize("axes_mesh", [
-        ({0: "x"}, {"x": 2}),
-        ({0: "x", 1: "y"}, {"x": 2, "y": 2}),
-        ({2: "th"}, {"th": 2}),     # sharded periodic lane axis
-    ])
-    def test_sharded_pallas_matches_xla(self, interpret_pallas, axes_mesh):
-        shard_axes, mesh_shape = axes_mesh
-        grid, system, v = self.setup_f32()
-        tau = jnp.linspace(0.0, 0.2, 3)
-        cfg_x = SchemeConfig(accuracy="veryHigh", rk_order=2)
-        cfg_p = SchemeConfig(accuracy="veryHigh", rk_order=2,
-                             use_pallas=True)
-        mesh = make_mesh(mesh_shape)
-        r_ref = solve(grid, system, v, tau, cfg=cfg_x)
-        r_x = solve_sharded(grid, system, v, tau, shard_axes=shard_axes,
-                            mesh=mesh, cfg=cfg_x)
-        r_p = solve_sharded(grid, system, v, tau, shard_axes=shard_axes,
-                            mesh=mesh, cfg=cfg_p)
-        scale = float(jnp.max(jnp.abs(r_ref.values)))
-        np.testing.assert_allclose(np.asarray(r_x.values),
-                                   np.asarray(r_ref.values),
-                                   atol=1e-6 * scale)
-        np.testing.assert_allclose(np.asarray(r_p.values),
-                                   np.asarray(r_x.values),
-                                   atol=2e-5 * scale)
-        assert int(r_p.steps) == int(r_x.steps)
-
-
 class TestHaloAllShards:
     """Every shard's padded block must equal the corresponding window of a
     globally padded array (not just shard 0's low ghosts)."""

@@ -118,7 +118,7 @@ class TestCoupled:
 
 
 class TestFrontDoorParity:
-    """VERDICT r4 #5: the single-field extras (discounting, tv stacks,
+    """The single-field extras (discounting, tv stacks,
     TTR, stopInit/stopSet) through the vector front door, each validated
     against the single-field `solve` on decoupled fields."""
 
@@ -226,93 +226,3 @@ class TestFrontDoorParity:
             solve_vector(self.g, self.sys, (self.v0,), self.tau,
                          cfg=self.cfg, stop_set_include=self.v0,
                          stop_set_intersect=self.v0)
-
-
-class TestFusedVectorPath:
-    """3-D vector solves route RK substeps through the fused substep
-    kernel with per-step lift/lower (measured A/B in vector.py docstring);
-    parity vs the XLA path in interpret mode."""
-
-    import pytest as _pytest
-
-    @_pytest.fixture()
-    def interpret_pallas(self, monkeypatch):
-        from jax.experimental import pallas as pl
-
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k["interpret"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(pl, "pallas_call", interp)
-
-    def _setup(self, n=16):
-        g = create_grid([-6, -10, 0], [20, 10, 2 * np.pi], n,
-                        periodic_dims=[2])
-        xs = g.mesh_broadcastable(jnp.float32)
-        reach = cylinder(g, ignore_axes=[2], radius=5.0) \
-            + 0.5 * jnp.sin(xs[2]) * jnp.cos(0.3 * xs[0])
-        avoid = cylinder(g, center=[8.0, 4.0, 0.0], ignore_axes=[2],
-                         radius=3.0)
-        sys_ = DubinsRel(v_e=5.0, v_p=5.0, w_bound=1.0)
-        return g, reach, avoid, sys_
-
-    def test_coupled_reach_avoid_matches_xla(self, interpret_pallas):
-        g, reach, avoid, sys_ = self._setup()
-        tau = jnp.linspace(0.0, 0.2, 3)
-        kw = dict(comp_methods=("minVOverTime", "none"),
-                  coupling=_ra_coupling, record_ttr=True)
-        # constant eps -> exact parity (no lagged-eps freedom)
-        r_x = solve_vector(g, sys_, (reach, avoid), tau,
-                           cfg=SchemeConfig(accuracy="veryHigh",
-                                            rk_order=2,
-                                            epsilon_method="constant"),
-                           **kw)
-        r_p = solve_vector(g, sys_, (reach, avoid), tau,
-                           cfg=SchemeConfig(accuracy="veryHigh", rk_order=2,
-                                            epsilon_method="constant",
-                                            use_pallas=True), **kw)
-        assert int(r_p.steps) == int(r_x.steps)
-        for k in range(2):
-            scale = float(jnp.max(jnp.abs(r_x.values[k])))
-            np.testing.assert_allclose(np.asarray(r_p.values[k]),
-                                       np.asarray(r_x.values[k]),
-                                       atol=5e-5 * scale)
-            np.testing.assert_allclose(
-                np.asarray(r_p.ttr[k])[np.isfinite(r_p.ttr[k])],
-                np.asarray(r_x.ttr[k])[np.isfinite(r_x.ttr[k])],
-                atol=1e-4)
-        # default (lagged maxOverGrid) eps: one-substep staleness is the
-        # documented fused semantics — loose check only
-        r_xl = solve_vector(g, sys_, (reach, avoid), tau,
-                            cfg=SchemeConfig(accuracy="veryHigh",
-                                             rk_order=2), **kw)
-        r_pl = solve_vector(g, sys_, (reach, avoid), tau,
-                            cfg=SchemeConfig(accuracy="veryHigh",
-                                             rk_order=2, use_pallas=True),
-                            **kw)
-        for k in range(2):
-            scale = float(jnp.max(jnp.abs(r_xl.values[k])))
-            np.testing.assert_allclose(np.asarray(r_pl.values[k]),
-                                       np.asarray(r_xl.values[k]),
-                                       atol=5e-4 * scale)
-
-    def test_sharded_fused_vector_matches_single(self, interpret_pallas):
-        g, reach, avoid, sys_ = self._setup(16)
-        tau = jnp.linspace(0.0, 0.2, 2)
-        cfg = SchemeConfig(accuracy="veryHigh", rk_order=2,
-                           use_pallas=True)
-        mesh = make_mesh({"x": 4})
-        kw = dict(comp_methods=("minVOverTime", "none"),
-                  coupling=_ra_coupling)
-        r_1 = solve_vector(g, sys_, (reach, avoid), tau, cfg=cfg, **kw)
-        r_s = solve_vector_sharded(g, sys_, (reach, avoid), tau,
-                                   shard_axes={0: "x"}, mesh=mesh,
-                                   cfg=cfg, **kw)
-        for k in range(2):
-            scale = float(jnp.max(jnp.abs(r_1.values[k])))
-            np.testing.assert_allclose(np.asarray(r_s.values[k]),
-                                       np.asarray(r_1.values[k]),
-                                       atol=5e-5 * scale)
-        assert int(r_s.steps) == int(r_1.steps)
